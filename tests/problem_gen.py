@@ -9,8 +9,8 @@ JAX solvers.
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.core.types import (CostApprox, DynamicsLin, OcpQpData,
-                                       StageConstraint)
+from cheeta_mpc.core.types import (CostApprox, DynamicsLin, OcpQpData,
+                                   StageConstraint)
 
 
 def random_psd(rng, n, scale=1.0, min_eig=0.1):

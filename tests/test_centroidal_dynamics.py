@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.models.centroidal import (CentroidalParams,
-                                              centroidal_step, linearize_step,
-                                              pack_state, rollout,
-                                              unpack_state)
+from cheeta_mpc.models.centroidal import (CentroidalParams,
+                                          centroidal_step, linearize_step,
+                                          pack_state, rollout,
+                                          unpack_state)
 
 NL = 4
 PARAMS = CentroidalParams.create(mass=8.0, num_legs=NL, dt=0.01, mu=0.8)

@@ -15,14 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.models.centroidal import (CentroidalParams,
-                                              centroidal_step)
-from cheeta_mpc_tpu.mpc.centroidal_mpc import (CentroidalMPC,
-                                               CentroidalMpcConfig,
-                                               _unpack_reference_inputs,
-                                               build_centroidal_solver)
-from cheeta_mpc_tpu.solvers.scp import ScpSettings
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
+from cheeta_mpc.models.centroidal import (CentroidalParams,
+                                          centroidal_step)
+from cheeta_mpc.mpc.centroidal_mpc import (CentroidalMPC,
+                                           CentroidalMpcConfig,
+                                           _unpack_reference_inputs,
+                                           build_centroidal_solver)
+from cheeta_mpc.solvers.scp import ScpSettings
+from cheeta_mpc.ops.ocpqp import IpmSettings
 
 HORIZON = 6
 NUM_LEGS = 4

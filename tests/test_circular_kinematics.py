@@ -5,7 +5,7 @@ they give the same answer — projection/changeOfInputVariables
 (MultipleShootingTranscription.cpp:67-82, ConstraintProjection.cpp:34-65)
 vs handing them to the QP solver — on the circular-kinematics OCP, its
 strongest solver oracle (testCircularKinematics.cpp:38,92). This file is
-that oracle for the TPU framework: `eq_mode='projected'` (null-space
+that oracle for this framework: `eq_mode='projected'` (null-space
 elimination + input remap, ops/projection.solve_ocp_qp_projected) against
 `eq_mode='riccati'` (masked eq-Riccati stage elimination, ops/riccati.py),
 at the QP level and through the full SQP on a nonlinear constrained
@@ -24,12 +24,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.core.types import (CostApprox, DynamicsLin, OcpQpData,
-                                       StageEquality)
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings, solve_ocp_qp
-from cheeta_mpc_tpu.ops.projection import solve_ocp_qp_projected
-from cheeta_mpc_tpu.ops.riccati import lqr_forward, solve_eq_lqr
-from cheeta_mpc_tpu.solvers.scp import ScpSettings, solve_nonlinear_ocp
+from cheeta_mpc.core.types import (CostApprox, DynamicsLin, OcpQpData,
+                                   StageEquality)
+from cheeta_mpc.ops.ocpqp import IpmSettings, solve_ocp_qp
+from cheeta_mpc.ops.projection import solve_ocp_qp_projected
+from cheeta_mpc.ops.riccati import lqr_forward, solve_eq_lqr
+from cheeta_mpc.solvers.scp import ScpSettings, solve_nonlinear_ocp
 from tests.problem_gen import add_random_constraints, random_lq_problem
 
 
@@ -117,7 +117,7 @@ def _linearize(x, u):
 
 
 def _performance(x, u):
-    from cheeta_mpc_tpu.core.types import PerformanceIndex
+    from cheeta_mpc.core.types import PerformanceIndex
     cost = (0.5 * W_X * jnp.sum((x - X_TARGET) ** 2)
             + 0.5 * W_U * jnp.sum(u * u))
     d = x[:-1] + DT * u - x[1:]

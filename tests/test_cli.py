@@ -4,8 +4,8 @@ import io
 
 import numpy as np
 
-from cheeta_mpc_tpu.cli.gait_command import run as gait_run
-from cheeta_mpc_tpu.cli.pose_command import command_to_target, run as pose_run
+from cheeta_mpc.cli.gait_command import run as gait_run
+from cheeta_mpc.cli.pose_command import command_to_target, run as pose_run
 
 
 def test_gait_command_node():

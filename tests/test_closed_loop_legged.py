@@ -13,17 +13,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.gait.schedule import GaitSchedule, ModeSchedule, trot_template
-from cheeta_mpc_tpu.gait.swing import SwingConfig, SwingTrajectoryPlanner
-from cheeta_mpc_tpu.models.quadruped_kinematics import foot_positions_world
-from cheeta_mpc_tpu.models.srbd_legged import srbd_step, unpack_srbd_state
-from cheeta_mpc_tpu.mpc.legged_mpc import (LeggedMpcConfig,
-                                           build_legged_solver,
-                                           make_velocity_command_reference)
-from cheeta_mpc_tpu.mpc.runtime import (MpcMrtInterface, PolicyData,
-                                        SystemObservation, run_dummy_loop)
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
-from cheeta_mpc_tpu.solvers.scp import ScpSettings
+from cheeta_mpc.gait.schedule import GaitSchedule, ModeSchedule, trot_template
+from cheeta_mpc.gait.swing import SwingConfig, SwingTrajectoryPlanner
+from cheeta_mpc.models.quadruped_kinematics import foot_positions_world
+from cheeta_mpc.models.srbd_legged import srbd_step, unpack_srbd_state
+from cheeta_mpc.mpc.legged_mpc import (LeggedMpcConfig,
+                                       build_legged_solver,
+                                       make_velocity_command_reference)
+from cheeta_mpc.mpc.runtime import (MpcMrtInterface, PolicyData,
+                                    SystemObservation, run_dummy_loop)
+from cheeta_mpc.ops.ocpqp import IpmSettings
+from cheeta_mpc.solvers.scp import ScpSettings
 
 TASK_INFO = "/root/reference/ocs2_legged_robot/config/mpc/task.info"
 DEFAULT_JOINTS = np.array([0., 0.4, -0.8, 0., -0.4, 0.8,

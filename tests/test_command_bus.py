@@ -12,10 +12,10 @@ import os
 
 import numpy as np
 
-from cheeta_mpc_tpu.cli import gait_command, pose_command
-from cheeta_mpc_tpu.transport.mpc_mrt import TOPICS, MpcNode
-from cheeta_mpc_tpu.transport.shm import ShmMessageBus
-from cheeta_mpc_tpu.utils.info_config import load_gait_library
+from cheeta_mpc.cli import gait_command, pose_command
+from cheeta_mpc.transport.mpc_mrt import TOPICS, MpcNode
+from cheeta_mpc.transport.shm import ShmMessageBus
+from cheeta_mpc.utils.info_config import load_gait_library
 
 GAIT_INFO = "/root/reference/ocs2_legged_robot/config/command/gait.info"
 

@@ -12,10 +12,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.ops.condensed import condense, solve_ocp_qp_condensed
-from cheeta_mpc_tpu.ops.ocpqp import (IpmSettings, kkt_residuals,
-                                      solve_ocp_qp)
-from cheeta_mpc_tpu.ops.riccati import solve_lqr
+from cheeta_mpc.ops.condensed import condense, solve_ocp_qp_condensed
+from cheeta_mpc.ops.ocpqp import (IpmSettings, kkt_residuals,
+                                  solve_ocp_qp)
+from cheeta_mpc.ops.riccati import solve_lqr
 from tests.problem_gen import add_random_constraints, random_lq_problem
 
 SETTINGS = IpmSettings(iters=30)
@@ -107,7 +107,7 @@ def test_condensed_float32():
 
 def test_condensed_rejects_stage_equalities():
     import pytest
-    from cheeta_mpc_tpu.core.types import StageEquality
+    from cheeta_mpc.core.types import StageEquality
     rng = np.random.default_rng(15)
     data = random_lq_problem(rng, N=4, nx=3, nu=2)
     eq = StageEquality(C=jnp.zeros((4, 1, 3)), D=jnp.zeros((4, 1, 2)),

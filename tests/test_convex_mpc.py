@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.examples import NOMINAL_FEET, trot_table
-from cheeta_mpc_tpu.models.srb import GRAVITY, SrbParams
-from cheeta_mpc_tpu.mpc.convex_mpc import ConvexMpcConfig, build_convex_mpc
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
+from cheeta_mpc.examples import NOMINAL_FEET, trot_table
+from cheeta_mpc.models.srb import GRAVITY, SrbParams
+from cheeta_mpc.mpc.convex_mpc import ConvexMpcConfig, build_convex_mpc
+from cheeta_mpc.ops.ocpqp import IpmSettings
 
 PARAMS = SrbParams(mass=9.0, inertia=(0.07, 0.26, 0.24), mu=0.5,
                    fz_max=250.0)
@@ -70,7 +70,7 @@ def test_trot_swing_forces_zero(solver):
 
 def test_height_regulation_closed_loop(solver):
     """Dropped CoM: the controller pushes up; closed loop re-tracks height."""
-    from cheeta_mpc_tpu.models.srb import srb_discrete_dynamics
+    from cheeta_mpc.models.srb import srb_discrete_dynamics
     x = nominal_state(height=0.27)
     ref = standing_reference(nominal_state(height=0.3), N)
     enable = np.ones((N, 4))

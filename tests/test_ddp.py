@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.core.types import CostApprox, DynamicsLin, OcpQpData
-from cheeta_mpc_tpu.models.centroidal import CentroidalParams, centroidal_step
-from cheeta_mpc_tpu.ops.riccati import solve_lqr
-from cheeta_mpc_tpu.solvers.ddp import (DdpSettings, relaxed_barrier,
-                                        solve_ddp)
+from cheeta_mpc.core.types import CostApprox, DynamicsLin, OcpQpData
+from cheeta_mpc.models.centroidal import CentroidalParams, centroidal_step
+from cheeta_mpc.ops.riccati import solve_lqr
+from cheeta_mpc.solvers.ddp import (DdpSettings, relaxed_barrier,
+                                    solve_ddp)
 from tests.problem_gen import random_lq_problem
 
 

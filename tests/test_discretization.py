@@ -3,8 +3,8 @@ analogue)."""
 
 import numpy as np
 
-from cheeta_mpc_tpu.gait.schedule import ModeSchedule
-from cheeta_mpc_tpu.solvers.discretization import (
+from cheeta_mpc.gait.schedule import ModeSchedule
+from cheeta_mpc.solvers.discretization import (
     EventKind, discretize_fixed, interval_contact_flags,
     time_discretization_with_events)
 

@@ -4,13 +4,13 @@ solver rows (reference testEndEffectorLinearConstraint.cpp analogue)."""
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.mpc.ee_constraint import (EeLinearConstraintConfig,
-                                              ee_linear_constraint_approx,
-                                              ee_linear_constraint_value,
-                                              normal_velocity_config,
-                                              zero_velocity_config)
-from cheeta_mpc_tpu.models.quadruped_kinematics import foot_positions_world
-from cheeta_mpc_tpu.models.srbd_legged import (
+from cheeta_mpc.mpc.ee_constraint import (EeLinearConstraintConfig,
+                                          ee_linear_constraint_approx,
+                                          ee_linear_constraint_value,
+                                          normal_velocity_config,
+                                          zero_velocity_config)
+from cheeta_mpc.models.quadruped_kinematics import foot_positions_world
+from cheeta_mpc.models.srbd_legged import (
     SrbdParams, foot_velocity_constraint_values, unpack_srbd_state)
 
 P = SrbdParams()

@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.mpc.friction_cone import (FrictionConeConfig,
-                                              RelaxedBarrierConfig,
-                                              barrier_cost_quadratic,
-                                              cone_derivatives, cone_value,
-                                              relaxed_barrier,
-                                              relaxed_barrier_derivatives)
+from cheeta_mpc.mpc.friction_cone import (FrictionConeConfig,
+                                          RelaxedBarrierConfig,
+                                          barrier_cost_quadratic,
+                                          cone_derivatives, cone_value,
+                                          relaxed_barrier,
+                                          relaxed_barrier_derivatives)
 
 CONE = FrictionConeConfig(friction_coefficient=0.7, regularization=25.0,
                           gripper_force=0.0, hessian_diagonal_shift=1e-6)
@@ -88,12 +88,12 @@ def test_soft_cone_legged_solve():
     with physically sane forces: stance Fz positive, swing forces zero,
     tangential forces well inside the cone away from saturation."""
     import jax.numpy as jnp
-    from cheeta_mpc_tpu.mpc.legged_mpc import (LeggedMpcConfig,
-                                               build_legged_solver,
-                                               make_standing_reference)
-    from cheeta_mpc_tpu.models.quadruped_kinematics import \
+    from cheeta_mpc.mpc.legged_mpc import (LeggedMpcConfig,
+                                           build_legged_solver,
+                                           make_standing_reference)
+    from cheeta_mpc.models.quadruped_kinematics import \
         foot_positions_world
-    from cheeta_mpc_tpu.solvers.scp import ScpSettings
+    from cheeta_mpc.solvers.scp import ScpSettings
 
     N = 10
     cfg = LeggedMpcConfig.from_task_info(

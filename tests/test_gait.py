@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.gait.motion_phase import (contact_flags_of_mode,
-                                              mode_from_name, mode_name,
-                                              mode_number)
-from cheeta_mpc_tpu.gait.schedule import (GaitSchedule, ModeSchedule,
-                                          stance_template, trot_template)
-from cheeta_mpc_tpu.gait.swing import (CubicSpline, SplineCpg, SwingConfig,
-                                       SwingTrajectoryPlanner,
-                                       swing_trajectory_scaling)
+from cheeta_mpc.gait.motion_phase import (contact_flags_of_mode,
+                                          mode_from_name, mode_name,
+                                          mode_number)
+from cheeta_mpc.gait.schedule import (GaitSchedule, ModeSchedule,
+                                      stance_template, trot_template)
+from cheeta_mpc.gait.swing import (CubicSpline, SplineCpg, SwingConfig,
+                                   SwingTrajectoryPlanner,
+                                   swing_trajectory_scaling)
 
 
 def test_mode_roundtrip():

@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.examples import (TEST_WEIGHTS, gait_table,
-                                     make_example_inputs, trot_table)
-from cheeta_mpc_tpu.mpc.centroidal_mpc import CentroidalMpcConfig, \
+from cheeta_mpc.examples import (TEST_WEIGHTS, gait_table,
+                                 make_example_inputs, trot_table)
+from cheeta_mpc.mpc.centroidal_mpc import CentroidalMpcConfig, \
     build_centroidal_solver
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
-from cheeta_mpc_tpu.solvers.scp import ScpSettings
+from cheeta_mpc.ops.ocpqp import IpmSettings
+from cheeta_mpc.solvers.scp import ScpSettings
 
 GAITS = ("trot", "bound", "pace", "gallop")
 N = 10

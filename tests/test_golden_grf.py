@@ -20,10 +20,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # NLP-oracle/subprocess tier: run with --runslow
 
-from cheeta_mpc_tpu.mpc.centroidal_mpc import (CentroidalMpcConfig,
-                                               build_centroidal_solver)
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
-from cheeta_mpc_tpu.solvers.scp import ScpSettings
+from cheeta_mpc.mpc.centroidal_mpc import (CentroidalMpcConfig,
+                                           build_centroidal_solver)
+from cheeta_mpc.ops.ocpqp import IpmSettings
+from cheeta_mpc.solvers.scp import ScpSettings
 
 from tests.oracle_nlp import solve_oracle_nlp
 from tests.test_centroidal_mpc import (DT, MASS, NUM_LEGS, WEIGHTS,
@@ -68,7 +68,7 @@ def test_golden_grf_match_n6():
 
 def test_golden_grf_match_n10():
     """The BASELINE.json N=10 horizon on the extended scenario."""
-    from cheeta_mpc_tpu.examples import make_example_inputs
+    from cheeta_mpc.examples import make_example_inputs
     cfg = CentroidalMpcConfig(mass=MASS, num_legs=NUM_LEGS, horizon=10,
                               dt=DT, weights=tuple(WEIGHTS), mu=(0.8,) * 4,
                               dtype=jnp.float64)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.utils.info_config import (as_list, as_matrix, load_info,
-                                              load_gait_library, parse_info)
+from cheeta_mpc.utils.info_config import (as_list, as_matrix, load_info,
+                                          load_gait_library, parse_info)
 
 TASK_INFO = "/root/reference/ocs2_legged_robot/config/mpc/task.info"
 GAIT_INFO = "/root/reference/ocs2_legged_robot/config/command/gait.info"

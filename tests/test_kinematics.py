@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.models.quadruped_kinematics import (
+from cheeta_mpc.models.quadruped_kinematics import (
     QuadrupedDescription, euler_zyx_rate_matrix, euler_zyx_rate_matrix_inv,
     euler_zyx_to_rot, foot_jacobians, foot_positions_world,
     foot_velocities_world)

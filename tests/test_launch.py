@@ -14,18 +14,21 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.gait.schedule import ModeSequenceTemplate
-from cheeta_mpc_tpu.mpc.runtime import PolicyData, SystemObservation
-from cheeta_mpc_tpu.transport.mpc_mrt import (TOPICS, CommandClient, MpcNode,
-                                              MrtNode, make_bus)
-from cheeta_mpc_tpu.transport.wire import (decode_gait_command,
-                                           decode_target_command,
-                                           encode_gait_command,
-                                           encode_target_command)
+from cheeta_mpc.gait.schedule import ModeSequenceTemplate
+from cheeta_mpc.mpc.runtime import PolicyData, SystemObservation
+from cheeta_mpc.transport.mpc_mrt import (TOPICS, CommandClient, MpcNode,
+                                          MrtNode, make_bus)
+from cheeta_mpc.transport.wire import (decode_gait_command,
+                                       decode_target_command,
+                                       encode_gait_command,
+                                       encode_target_command)
+
+REPO = str(Path(__file__).resolve().parents[1])
 
 
 def test_command_wire_roundtrip():
@@ -92,12 +95,13 @@ def test_two_process_launch_with_live_gait_switch(tmp_path):
     shared memory; a trot command is published live mid-run; the robot
     walks through the gait transition and stays upright."""
     out = str(tmp_path / "launch")
+    from cheeta_mpc.utils.compile_cache import compile_cache_dir
     from tests.conftest import _cpu_key
-    env = dict(os.environ, PYTHONPATH="/root/repo",
-               JAX_COMPILATION_CACHE_DIR=f"/tmp/jax_cache_cpu_{_cpu_key}")
+    env = dict(os.environ, PYTHONPATH=REPO,
+               JAX_COMPILATION_CACHE_DIR=compile_cache_dir(f"cpu_{_cpu_key}"))
     t0 = time.monotonic()
     proc = subprocess.run(
-        [sys.executable, "-m", "cheeta_mpc_tpu.cli.launch",
+        [sys.executable, "-m", "cheeta_mpc.cli.launch",
          "--platform", "cpu", "--seconds", "0.9", "--vx", "0.25",
          "--gait", "trot", "--horizon", "10", "--switch-gait",
          "standing_trot@0.4", "--out", out],

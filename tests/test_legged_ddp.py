@@ -7,17 +7,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.gait.schedule import GaitSchedule, trot_template
-from cheeta_mpc_tpu.gait.swing import SwingConfig, SwingTrajectoryPlanner
-from cheeta_mpc_tpu.models.quadruped_kinematics import foot_positions_world
-from cheeta_mpc_tpu.models.srbd_legged import srbd_step
-from cheeta_mpc_tpu.mpc.legged_ddp import build_legged_ddp_solver
-from cheeta_mpc_tpu.mpc.legged_mpc import (LeggedMpcConfig,
-                                           make_standing_reference,
-                                           make_velocity_command_reference)
-from cheeta_mpc_tpu.mpc.runtime import (MpcMrtInterface, PolicyData,
-                                        SystemObservation, run_dummy_loop)
-from cheeta_mpc_tpu.solvers.ddp import DdpSettings
+from cheeta_mpc.gait.schedule import GaitSchedule, trot_template
+from cheeta_mpc.gait.swing import SwingConfig, SwingTrajectoryPlanner
+from cheeta_mpc.models.quadruped_kinematics import foot_positions_world
+from cheeta_mpc.models.srbd_legged import srbd_step
+from cheeta_mpc.mpc.legged_ddp import build_legged_ddp_solver
+from cheeta_mpc.mpc.legged_mpc import (LeggedMpcConfig,
+                                       make_standing_reference,
+                                       make_velocity_command_reference)
+from cheeta_mpc.mpc.runtime import (MpcMrtInterface, PolicyData,
+                                    SystemObservation, run_dummy_loop)
+from cheeta_mpc.solvers.ddp import DdpSettings
 
 TASK_INFO = "/root/reference/ocs2_legged_robot/config/mpc/task.info"
 DEFAULT_JOINTS = np.array([0., 0.4, -0.8, 0., -0.4, 0.8,
@@ -52,7 +52,7 @@ def test_ddp_standing_solve():
     assert np.isfinite(forces).all()
     assert (forces[:, :, 2] > 1.0).all()
     # Total vertical force carries the robot's weight.
-    from cheeta_mpc_tpu.models.srbd_legged import GRAVITY
+    from cheeta_mpc.models.srbd_legged import GRAVITY
     m = float(CFG.params.desc.mass)
     fz_total = forces[:, :, 2].sum(axis=1)
     np.testing.assert_allclose(fz_total, m * GRAVITY, rtol=0.15)
@@ -154,9 +154,9 @@ def test_sqp_vs_ddp_cross_check():
     the standing scenario's physics: same weight distribution and CoM
     trajectory to penalty-method tolerance (reference parity:
     LeggedRobotSqpMpcNode vs LeggedRobotDdpMpcNode on one task)."""
-    from cheeta_mpc_tpu.mpc.legged_mpc import build_legged_solver
-    from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
-    from cheeta_mpc_tpu.solvers.scp import ScpSettings
+    from cheeta_mpc.mpc.legged_mpc import build_legged_solver
+    from cheeta_mpc.ops.ocpqp import IpmSettings
+    from cheeta_mpc.solvers.scp import ScpSettings
 
     x0 = standing_state()
     x_ref = make_standing_reference(CFG, x0)
@@ -184,11 +184,11 @@ def test_planner_assembly_ddp_policy_has_value_function():
     """LeggedPlannerAssembly in DDP mode (the LeggedRobotDdpMpcNode wiring):
     task.info-configured DdpSettings, one planning tick produces a policy
     with the value-function surface {P, p} filled like the SQP mode."""
-    from cheeta_mpc_tpu.gait.schedule import GaitSchedule, trot_template
-    from cheeta_mpc_tpu.mpc.legged_node import (LeggedPlannerAssembly,
-                                                PlannerSettings,
-                                                default_stance_state)
-    from cheeta_mpc_tpu.mpc.runtime import SystemObservation
+    from cheeta_mpc.gait.schedule import GaitSchedule, trot_template
+    from cheeta_mpc.mpc.legged_node import (LeggedPlannerAssembly,
+                                            PlannerSettings,
+                                            default_stance_state)
+    from cheeta_mpc.mpc.runtime import SystemObservation
 
     cfg = LeggedMpcConfig.from_task_info(TASK_INFO, horizon=8,
                                          dtype=jnp.float64)

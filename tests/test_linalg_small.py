@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.ops.linalg_small import (chol_unrolled, spd_inverse,
-                                             tri_lower_inv_unrolled)
+from cheeta_mpc.ops.linalg_small import (chol_unrolled, spd_inverse,
+                                         tri_lower_inv_unrolled)
 
 
 @pytest.mark.parametrize("n", [3, 24, 33])

@@ -3,10 +3,10 @@ LoopshapingSystemObservation.cpp:31-42 + LoopshapingDummyObserver)."""
 
 import numpy as np
 
-from cheeta_mpc_tpu.mpc.loopshaping import (LoopshapingDefinition,
-                                            LoopshapingObserver,
-                                            loopshaping_to_system_observation)
-from cheeta_mpc_tpu.mpc.runtime import SystemObservation
+from cheeta_mpc.mpc.loopshaping import (LoopshapingDefinition,
+                                        LoopshapingObserver,
+                                        loopshaping_to_system_observation)
+from cheeta_mpc.mpc.runtime import SystemObservation
 
 
 def test_identity_loopshaping():

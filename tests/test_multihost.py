@@ -1,12 +1,11 @@
 """Multi-host (multi-process) scaling path: 2 processes x 4 virtual CPU
 devices, one global 8-device mesh over the jax.distributed runtime.
 
-The round-1 VERDICT's missing component #76/#83: the single-host dryrun
-exercises ICI-style batch sharding but not the DCN runtime. Here two
-OS processes meet at a local coordinator (`jax.distributed.initialize`),
-build a global mesh, feed host-local batch shards
-(`host_local_batch_to_global`) and run the sharded centroidal solve — the
-same wiring a real 2-host TPU pod slice uses, minus the physical DCN.
+The single-host dry run exercises single-process batch sharding but not
+the multi-host runtime. Here two OS processes meet at a local coordinator
+(`jax.distributed.initialize`), build a global mesh, feed host-local batch
+shards (`host_local_batch_to_global`) and run the sharded centroidal solve — the
+same wiring a real 2-host cluster uses, minus the physical network.
 """
 
 import os
@@ -29,20 +28,20 @@ import jax.numpy as jnp
 
 proc_id = int(sys.argv[1])
 port = sys.argv[2]
-from cheeta_mpc_tpu.parallel.mesh import (host_local_batch_to_global,
-                                          initialize_distributed,
-                                          make_global_mesh,
-                                          sharded_batch_solver)
+from cheeta_mpc.parallel.mesh import (host_local_batch_to_global,
+                                      initialize_distributed,
+                                      make_global_mesh,
+                                      sharded_batch_solver)
 initialize_distributed(coordinator_address=f"localhost:{port}",
                        num_processes=2, process_id=proc_id)
 assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 8, len(jax.devices())
 
-from cheeta_mpc_tpu.examples import TEST_WEIGHTS, make_example_inputs
-from cheeta_mpc_tpu.mpc.centroidal_mpc import (CentroidalMpcConfig,
-                                               build_centroidal_solver)
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
-from cheeta_mpc_tpu.solvers.scp import ScpSettings
+from cheeta_mpc.examples import TEST_WEIGHTS, make_example_inputs
+from cheeta_mpc.mpc.centroidal_mpc import (CentroidalMpcConfig,
+                                           build_centroidal_solver)
+from cheeta_mpc.ops.ocpqp import IpmSettings
+from cheeta_mpc.solvers.scp import ScpSettings
 
 cfg = CentroidalMpcConfig(mass=8.0, num_legs=4, horizon=4, dt=0.01,
                           weights=tuple(TEST_WEIGHTS), mu=(0.8,) * 4,

@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings, kkt_residuals, solve_ocp_qp
-from cheeta_mpc_tpu.ops.riccati import solve_lqr
+from cheeta_mpc.ops.ocpqp import IpmSettings, kkt_residuals, solve_ocp_qp
+from cheeta_mpc.ops.riccati import solve_lqr
 from tests.problem_gen import (add_random_constraints, dense_solve_equality,
                                random_lq_problem)
 
@@ -120,7 +120,7 @@ def test_vmap_and_jit():
 
 
 def test_float32_accuracy():
-    """f32 (TPU deployment dtype) stays within loose-but-useful tolerance."""
+    """f32 (accelerator deployment dtype) stays within loose-but-useful tolerance."""
     rng = np.random.default_rng(5)
     data64 = random_lq_problem(rng, N=6, nx=4, nu=3)
     data64 = add_random_constraints(rng, data64, ng=3, tight=0.4)

@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.core.types import StageEquality
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings, solve_ocp_qp
-from cheeta_mpc_tpu.ops.riccati import solve_eq_lqr
+from cheeta_mpc.core.types import StageEquality
+from cheeta_mpc.ops.ocpqp import IpmSettings, solve_ocp_qp
+from cheeta_mpc.ops.riccati import solve_eq_lqr
 from tests.problem_gen import add_random_constraints, random_lq_problem
 from tests.test_riccati_eq import dense_solve_with_equalities, make_problem
 

@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.examples import TEST_WEIGHTS, make_example_inputs
-from cheeta_mpc_tpu.mpc.centroidal_mpc import (CentroidalMpcConfig,
-                                               build_centroidal_mpc_loop,
-                                               build_centroidal_solver)
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
-from cheeta_mpc_tpu.solvers.scp import ScpSettings
+from cheeta_mpc.examples import TEST_WEIGHTS, make_example_inputs
+from cheeta_mpc.mpc.centroidal_mpc import (CentroidalMpcConfig,
+                                           build_centroidal_mpc_loop,
+                                           build_centroidal_solver)
+from cheeta_mpc.ops.ocpqp import IpmSettings
+from cheeta_mpc.solvers.scp import ScpSettings
 
 
 def _stance_inputs(cfg):

@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.examples import NOMINAL_FEET, trot_table
-from cheeta_mpc_tpu.models.srb import SrbParams
-from cheeta_mpc_tpu.mpc.convex_mpc import ConvexMpcConfig, build_convex_mpc
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
-from cheeta_mpc_tpu.parallel.mesh import (make_mesh, shard_batch,
-                                          sharded_batch_solver)
+from cheeta_mpc.examples import NOMINAL_FEET, trot_table
+from cheeta_mpc.models.srb import SrbParams
+from cheeta_mpc.mpc.convex_mpc import ConvexMpcConfig, build_convex_mpc
+from cheeta_mpc.ops.ocpqp import IpmSettings
+from cheeta_mpc.parallel.mesh import (make_mesh, shard_batch,
+                                      sharded_batch_solver)
 
 
 def test_mesh_has_8_devices():
@@ -62,7 +62,7 @@ def forces_device_shards(arr):
 
 
 def test_psum_metric_reduction():
-    """ICI-style metric reduction across the batch axis (solver health
+    """Cross-device metric reduction across the batch axis (solver health
     counters aggregated with a collective, SURVEY.md §2.8)."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
     mesh = make_mesh()
@@ -79,9 +79,9 @@ def test_psum_metric_reduction():
 def test_aggregate_fleet_health():
     """The framework's explicit shard_map+psum health reduction: correct
     counts/moments, replicated result, O(1)-per-device collectives."""
-    from cheeta_mpc_tpu.parallel.mesh import aggregate_fleet_health
-    from cheeta_mpc_tpu.solvers.scp import (CONV_FALSE, CONV_ITERATIONS,
-                                            CONV_METRICS, CONV_STEPSIZE)
+    from cheeta_mpc.parallel.mesh import aggregate_fleet_health
+    from cheeta_mpc.solvers.scp import (CONV_FALSE, CONV_ITERATIONS,
+                                        CONV_METRICS, CONV_STEPSIZE)
     mesh = make_mesh()
     B = 16
     rng = np.random.default_rng(7)

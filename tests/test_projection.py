@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.ops.projection import (lu_projection, qr_projection)
+from cheeta_mpc.ops.projection import (lu_projection, qr_projection)
 
 NC, NU, NX = 10, 20, 30
 

@@ -11,17 +11,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.gait.schedule import GaitSchedule, trot_template
-from cheeta_mpc_tpu.gait.swing import SwingConfig, SwingTrajectoryPlanner
-from cheeta_mpc_tpu.models.quadruped_kinematics import foot_positions_world
-from cheeta_mpc_tpu.models.srbd_legged import srbd_step
-from cheeta_mpc_tpu.mpc.legged_mpc import (LeggedMpcConfig,
-                                           build_legged_solver,
-                                           make_velocity_command_reference)
-from cheeta_mpc_tpu.mpc.runtime import (MpcMrtInterface, PolicyData,
-                                        SystemObservation, run_dummy_loop,
-                                        shift_warm_start)
-from cheeta_mpc_tpu.solvers.scp import ScpSettings
+from cheeta_mpc.gait.schedule import GaitSchedule, trot_template
+from cheeta_mpc.gait.swing import SwingConfig, SwingTrajectoryPlanner
+from cheeta_mpc.models.quadruped_kinematics import foot_positions_world
+from cheeta_mpc.models.srbd_legged import srbd_step
+from cheeta_mpc.mpc.legged_mpc import (LeggedMpcConfig,
+                                       build_legged_solver,
+                                       make_velocity_command_reference)
+from cheeta_mpc.mpc.runtime import (MpcMrtInterface, PolicyData,
+                                    SystemObservation, run_dummy_loop,
+                                    shift_warm_start)
+from cheeta_mpc.solvers.scp import ScpSettings
 
 TASK_INFO = "/root/reference/ocs2_legged_robot/config/mpc/task.info"
 DEFAULT_JOINTS = np.array([0., 0.4, -0.8, 0., -0.4, 0.8,

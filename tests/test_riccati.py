@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.ops.riccati import cost_of, solve_lqr
+from cheeta_mpc.ops.riccati import cost_of, solve_lqr
 from tests.problem_gen import dense_solve_equality, random_lq_problem
 
 

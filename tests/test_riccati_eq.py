@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.core.types import DynamicsLin
-from cheeta_mpc_tpu.ops.riccati import (lqr_forward, riccati_factorize_eq,
-                                        riccati_vector_eq)
+from cheeta_mpc.core.types import DynamicsLin
+from cheeta_mpc.ops.riccati import (lqr_forward, riccati_factorize_eq,
+                                    riccati_vector_eq)
 from tests.problem_gen import random_lq_problem
 
 
@@ -123,7 +123,7 @@ def test_equalities_satisfied():
 
 
 def test_all_masked_reduces_to_plain_lqr():
-    from cheeta_mpc_tpu.ops.riccati import solve_lqr
+    from cheeta_mpc.ops.riccati import solve_lqr
     rng = np.random.default_rng(11)
     data = random_lq_problem(rng, 6, 5, 4)
     nc = 3

@@ -3,9 +3,9 @@ toy LQR plant (keeps the heavy centroidal solve out of this unit)."""
 
 import numpy as np
 
-from cheeta_mpc_tpu.mpc.runtime import (MpcMrtInterface, MrtBase, PolicyData,
-                                        SystemObservation, run_dummy_loop,
-                                        run_realtime_dummy_loop)
+from cheeta_mpc.mpc.runtime import (MpcMrtInterface, MrtBase, PolicyData,
+                                    SystemObservation, run_dummy_loop,
+                                    run_realtime_dummy_loop)
 
 
 def _toy_policy(t0, x0, N=10, dt=0.1):

@@ -18,9 +18,9 @@ import time
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.transport.mpc_mrt import TOPICS, MrtNode
-from cheeta_mpc_tpu.transport.shm import ShmMessageBus
-from cheeta_mpc_tpu.mpc.runtime import SystemObservation
+from cheeta_mpc.transport.mpc_mrt import TOPICS, MrtNode
+from cheeta_mpc.transport.shm import ShmMessageBus
+from cheeta_mpc.mpc.runtime import SystemObservation
 
 
 def _unique_name(tag):
@@ -57,9 +57,9 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
-from cheeta_mpc_tpu.mpc.runtime import PolicyData
-from cheeta_mpc_tpu.transport.mpc_mrt import TOPICS, MpcNode
-from cheeta_mpc_tpu.transport.shm import ShmMessageBus
+from cheeta_mpc.mpc.runtime import PolicyData
+from cheeta_mpc.transport.mpc_mrt import TOPICS, MpcNode
+from cheeta_mpc.transport.shm import ShmMessageBus
 
 name, ready_path = sys.argv[1], sys.argv[2]
 bus = ShmMessageBus(TOPICS, name)
@@ -130,7 +130,7 @@ def test_shm_two_process_mpc_mrt():
 _HAMMER_CHILD = r"""
 import sys
 import numpy as np
-from cheeta_mpc_tpu.transport.shm import ShmMessageBus
+from cheeta_mpc.transport.shm import ShmMessageBus
 
 name = sys.argv[1]
 bus = ShmMessageBus(("t",), name)

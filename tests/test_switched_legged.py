@@ -3,7 +3,7 @@
 The reference duplicates event nodes so mode switches land exactly between
 two shooting nodes (timeDiscretizationWithEvents, TimeDiscretization.cpp:
 36-114) and tests it on a mode-switched problem (testSwitchedProblem.cpp:
-96-196: input correctness on both sides of the switch). TPU static shapes
+96-196: input correctness on both sides of the switch). Static shapes
 replace node duplication with event *snapping* (discretize_fixed) +
 per-interval contact flags + per-interval durations — this test asserts the
 same observable behavior: the grid contains the event time exactly, the
@@ -16,15 +16,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.gait.schedule import GaitSchedule, trot_template
-from cheeta_mpc_tpu.mpc.legged_mpc import (LeggedMpcConfig,
-                                           build_legged_solver,
-                                           make_standing_reference)
-from cheeta_mpc_tpu.models.quadruped_kinematics import foot_positions_world
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings
-from cheeta_mpc_tpu.solvers.discretization import (discretize_fixed,
-                                                   interval_contact_flags)
-from cheeta_mpc_tpu.solvers.scp import ScpSettings
+from cheeta_mpc.gait.schedule import GaitSchedule, trot_template
+from cheeta_mpc.mpc.legged_mpc import (LeggedMpcConfig,
+                                       build_legged_solver,
+                                       make_standing_reference)
+from cheeta_mpc.models.quadruped_kinematics import foot_positions_world
+from cheeta_mpc.ops.ocpqp import IpmSettings
+from cheeta_mpc.solvers.discretization import (discretize_fixed,
+                                               interval_contact_flags)
+from cheeta_mpc.solvers.scp import ScpSettings
 
 TASK_INFO = "/root/reference/ocs2_legged_robot/config/mpc/task.info"
 DEFAULT_JOINTS = np.array([0., 0.4, -0.8, 0., -0.4, 0.8,
@@ -93,7 +93,7 @@ def test_switched_solve_forces_flip_at_event():
     np.testing.assert_allclose(forces[k:, swing, :], 0.0, atol=1e-12)
     assert (forces[:k, swing, 2] > 1.0).all()
     # Dynamics defects stay tight across the variable-dt grid.
-    from cheeta_mpc_tpu.models.srbd_legged import srbd_step
+    from cheeta_mpc.models.srbd_legged import srbd_step
     for i in range(N):
         xn = srbd_step(CFG.params, jnp.asarray(sol.x_traj[i]),
                        jnp.asarray(sol.u_traj[i]), jnp.asarray(flags[i]),

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cheeta_mpc_tpu.ops.ocpqp import IpmSettings, kkt_residuals, solve_ocp_qp
-from cheeta_mpc_tpu.ops.riccati import fold_terminal_equality, solve_eq_lqr
+from cheeta_mpc.ops.ocpqp import IpmSettings, kkt_residuals, solve_ocp_qp
+from cheeta_mpc.ops.riccati import fold_terminal_equality, solve_eq_lqr
 from tests.problem_gen import random_lq_problem
 
 
@@ -93,7 +93,7 @@ def test_terminal_equality_with_inequalities():
     data = random_lq_problem(rng, N=6, nx=4, nu=2)
     # Reachable terminal target: whatever the unconstrained solution hits,
     # nudged slightly.
-    from cheeta_mpc_tpu.ops.riccati import solve_lqr
+    from cheeta_mpc.ops.riccati import solve_lqr
     base = solve_lqr(data)
     target = np.asarray(base.dx[-1][:1]) + 0.05
     d2 = fold_terminal_equality(data, jnp.asarray(np.eye(4)[:1]),

@@ -6,11 +6,11 @@ import time
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.mpc.runtime import PolicyData, SystemObservation
-from cheeta_mpc_tpu.transport.bus import MessageBus
-from cheeta_mpc_tpu.transport.mpc_mrt import MpcNode, MrtNode, make_bus
-from cheeta_mpc_tpu.transport.wire import (decode_observation, decode_policy,
-                                           encode_observation, encode_policy)
+from cheeta_mpc.mpc.runtime import PolicyData, SystemObservation
+from cheeta_mpc.transport.bus import MessageBus
+from cheeta_mpc.transport.mpc_mrt import MpcNode, MrtNode, make_bus
+from cheeta_mpc.transport.wire import (decode_observation, decode_policy,
+                                       encode_observation, encode_policy)
 
 
 def test_native_bus_builds():

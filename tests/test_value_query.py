@@ -18,10 +18,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cheeta_mpc_tpu.core.types import CostApprox, DynamicsLin, OcpQpData
-from cheeta_mpc_tpu.mpc.runtime import (MpcMrtInterface, MpcSettings,
-                                        PolicyData, SystemObservation)
-from cheeta_mpc_tpu.ops.riccati import cost_of, solve_lqr
+from cheeta_mpc.core.types import CostApprox, DynamicsLin, OcpQpData
+from cheeta_mpc.mpc.runtime import (MpcMrtInterface, MpcSettings,
+                                    PolicyData, SystemObservation)
+from cheeta_mpc.ops.riccati import cost_of, solve_lqr
 from tests.problem_gen import random_lq_problem
 
 
@@ -117,7 +117,7 @@ def test_interface_accessors_and_window():
 
 
 def test_mrt_observer_hooks():
-    from cheeta_mpc_tpu.mpc.runtime import MrtBase, MrtObserver
+    from cheeta_mpc.mpc.runtime import MrtBase, MrtObserver
 
     calls = []
 
@@ -140,7 +140,7 @@ def test_mrt_observer_hooks():
 
 
 def test_rollout_policy():
-    from cheeta_mpc_tpu.mpc.runtime import MrtBase
+    from cheeta_mpc.mpc.runtime import MrtBase
 
     pol = _policy_with_value()
     mrt = MrtBase()

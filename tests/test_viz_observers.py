@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from cheeta_mpc_tpu.mpc.runtime import PolicyData
-from cheeta_mpc_tpu.mpc.solver_observer import ConstraintMultiplierObserver
-from cheeta_mpc_tpu.viz.helpers import (LeggedVisualizer, center_of_pressure,
-                                        support_polygon)
+from cheeta_mpc.mpc.runtime import PolicyData
+from cheeta_mpc.mpc.solver_observer import ConstraintMultiplierObserver
+from cheeta_mpc.viz.helpers import (LeggedVisualizer, center_of_pressure,
+                                    support_polygon)
 
 FEET = np.array([[0.3, 0.2, 0.0], [0.3, -0.2, 0.0],
                  [-0.3, 0.2, 0.0], [-0.3, -0.2, 0.0]])

@@ -6,8 +6,8 @@ polygon, desired trajectory, per-leg forces."""
 
 import numpy as np
 
-from cheeta_mpc_tpu.viz.helpers import LeggedVisualizer
-from cheeta_mpc_tpu.viz.render import render_run
+from cheeta_mpc.viz.helpers import LeggedVisualizer
+from cheeta_mpc.viz.render import render_run
 
 
 def _capture(n=25):
